@@ -2,15 +2,15 @@
 """Multi-host pod-slice launcher for Monte-Carlo / scaling runs.
 
 The reference's multi-node story is a SLURM batch script running analysis.py
-on one 16-core node (reference cluster/sim.sbatch).  The TPU-native
-equivalent: launch this script on every host of a pod slice (e.g. with
-`gcloud compute tpus tpu-vm ssh --worker=all`), `jax.distributed.initialize`
-discovers the slice, and the global mesh spans all chips over ICI/DCN.  The
+on one 16-core node (reference cluster/sim.sbatch).  Here ONE process per
+host drives all of that host's GPUs (cluster/pod.sbatch launches it); with
+several hosts, pass ``--coordinator/--num-hosts/--host-id`` and
+``jax.distributed.initialize`` joins them into one global mesh.  The
 subproblem batch and Monte-Carlo trial axes shard over the global device
 mesh; each host feeds its local shard.
 
-On a single host this degrades gracefully to the local devices, so the same
-entry point serves laptops, one TPU VM and full slices.
+On a single host the mesh is the local devices, so the same entry point
+serves a laptop (``--cpu``), one 4-GPU host and several hosts.
 
 Usage (each host):
   python cluster/run_pod.py --agents 64 --trials 4
@@ -94,13 +94,14 @@ def main():
             jnp.asarray(np.stack(U0s)), args.radius, mesh=mesh, K=8,
             config=dtl.SolverConfig(n_lqr_iter=8, tol=1e-6),
         )
-        float(np.asarray(res.J).sum())  # compile + sync
+        jax.block_until_ready(res)  # compile + warm
         t0 = perf_counter()
         res = dtl.solve_trials_sharded(
             fleet, cost_T, jnp.asarray(np.stack(X0s)),
             jnp.asarray(np.stack(U0s)), args.radius, mesh=mesh, K=8,
             config=dtl.SolverConfig(n_lqr_iter=8, tol=1e-6),
         )
+        jax.block_until_ready(res)
         wall = perf_counter() - t0
         if jax.process_index() == 0:
             print(json.dumps({
@@ -128,8 +129,7 @@ def main():
             fleet, cost, jnp.asarray(x0, dtype)[None], U0, args.radius,
             mesh=mesh,
         )
-        float(res.J)  # hard host sync (block_until_ready can be async
-        # through remote-device tunnels)
+        jax.block_until_ready(res)  # compile + warm
         reps = 5
         t0 = perf_counter()
         for _ in range(reps):
@@ -137,7 +137,7 @@ def main():
                 fleet, cost, jnp.asarray(x0, dtype)[None], U0, args.radius,
                 mesh=mesh,
             )
-        float(res.J)
+        jax.block_until_ready(res)
         wall = (perf_counter() - t0) / reps
         results.append(
             {
@@ -176,7 +176,7 @@ def _scaling_run(args, fleet, devices, n, N):
     devices share the host's physical cores, so the 1-device baseline is
     pinned to ONE core and ``ideal = min(n_devices, n_cores)`` -- the mesh
     validates the sharded program and per-core efficiency; chip-level
-    efficiency (BASELINE.md >= 80% target) needs real multi-chip ICI.
+    efficiency (BASELINE.md >= 80% target) needs real cards.
     """
     import jax
     import jax.numpy as jnp

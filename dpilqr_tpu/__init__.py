@@ -1,11 +1,11 @@
-"""dpilqr_tpu: TPU-native distributed potential iLQR.
+"""dpilqr_tpu: accelerator-native distributed potential iLQR in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of labicon/dp-ilqr:
 cooperative multi-agent trajectory optimization as a potential game, solved
 with iterative LQR and scaled by proximity-based problem decomposition --
-expressed as batched block-structured array programs that map onto TPU
-hardware (MXU matmuls, lax.scan sweeps, vmapped subproblem batches, sharded
-device meshes) instead of the reference's object graphs, Cython kernel and
+expressed as batched block-structured array programs (lax.scan sweeps, a
+Triton Riccati kernel, vmapped subproblem batches, sharded device meshes)
+instead of the reference's object graphs, Cython kernel and
 multiprocessing pool.
 """
 

@@ -4,7 +4,7 @@ Users of labicon/dp-ilqr interact with ``UnicycleDynamics4D``, ``GameCost``,
 ``ilqrProblem``, ``ilqrSolver``, ``solve_distributed`` etc. on flat
 concatenated state vectors.  This module provides that exact surface
 (signatures and semantics mirroring dpilqr/__init__.py) as a thin object
-layer over the TPU-native array core: building one of these objects
+layer over the JAX array core: building one of these objects
 assembles a ``Fleet`` + array ``GameCost``; ``solve`` calls the jitted
 solver and returns flat numpy arrays like the reference.
 
@@ -187,7 +187,7 @@ class SymbolicModel(DynamicalModel):
     (like the reference's BikeDynamics5D, dynamics.py:254-277), sets the
     reference-compatible ``_f``/``A_num``/``B_num`` numpy lambdas, AND
     lambdifies the vector field into a JAX-traceable ``ModelSpec`` so the
-    custom model runs through the whole TPU core (Fleet dispatch, batched
+    custom model runs through the whole array core (Fleet dispatch, batched
     solves, distributed decomposition) like any built-in model.
 
     Object semantics match the reference: ``__call__`` integrates with
@@ -198,7 +198,7 @@ class SymbolicModel(DynamicalModel):
     A subclass that instead assigns ``_f``/``A_num``/``B_num`` directly (the
     verbatim reference pattern) still works at the object level (f,
     linearize, __call__, single-model solves via finite differencing is NOT
-    implied -- only _build wires the TPU path).
+    implied -- only _build wires the array path).
     """
 
     # Custom model ids live far above the built-in registry (specs.py ids
@@ -229,7 +229,7 @@ class SymbolicModel(DynamicalModel):
         self._f = sym.lambdify((x_sym, u_sym), sym.Array(x_dot_sym)[:, 0])
         self.A_num = sym.lambdify((x_sym, u_sym), A)
         self.B_num = sym.lambdify((x_sym, u_sym), B)
-        # JAX-traceable vector field for the TPU core (flat expression list;
+        # JAX-traceable vector field for the array core (flat expression list;
         # sympy's code printer cannot print NDimArray for arbitrary modules).
         fj = sym.lambdify((x_sym, u_sym), list(x_dot_sym), modules=_jnp)
         n_x = self.n_x
@@ -542,7 +542,7 @@ class GameCost(Cost):
             )
         return out
 
-    # ---- array-spec assembly for the TPU core -----------------------------
+    # ---- array-spec assembly for the array core ---------------------------
     def to_array_spec(self, fleet: _fleet_mod.Fleet) -> _costs.GameCost:
         nxp, nup = fleet.nx_p, fleet.nu_p
         n = self.n_agents
@@ -624,7 +624,7 @@ class ilqrProblem:
         return X[:, i * nx : (i + 1) * nx], U[:, i * nu : (i + 1) * nu]
 
     def selfish_warmstart(self, x0, N):
-        """Per-agent solo warm start (problem.py:66-91), batched on TPU."""
+        """Per-agent solo warm start (problem.py:66-91), batched on device."""
         fleet = self._fleet()
         game = self._as_game()
         spec = game.to_array_spec(fleet)
@@ -639,7 +639,7 @@ class ilqrProblem:
 # ------------------------------------------------------------------ solver
 class ilqrSolver:
     """Reference-shaped solver facade (control.py:15-249) over the jitted
-    TPU core.  ``solve`` returns flat numpy ``(X, U, J)``."""
+    array core.  ``solve`` returns flat numpy ``(X, U, J)``."""
 
     def __init__(self, problem: ilqrProblem, N: int = 10):
         self.problem = problem
@@ -741,7 +741,7 @@ def solve_subproblem(args, **kwargs):
     """Solve one neighborhood subproblem and extract the owner's slice
     (reference problem.py:97-105): ``args = (subproblem, x0, U, id_[,
     verbose])``, returns ``(Xi, Ui, id_)``.  Kept for drop-in callers; the
-    TPU path batches all subproblems into one program instead
+    array path batches all subproblems into one program instead
     (parallel/distributed.py)."""
     subproblem, x0, U, id_, *rest = args
     # Pop the kwarg unconditionally so it is never forwarded twice when a

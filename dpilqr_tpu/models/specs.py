@@ -10,9 +10,9 @@ uses: ``A_d = I + dt * A_c``, ``B_d = dt * B_c``
 Model catalogue mirrors the reference's eight native models plus the symbolic
 bicycle (dpilqr/bbdynamics.cpp:108-711, dpilqr/dynamics.py:205-277).
 
-Heterogeneous fleets are handled the TPU way: every agent's state/control is
+Heterogeneous fleets are handled the array way: every agent's state/control is
 zero-padded to the fleet-wide maximum, so all per-agent tensors stack into
-rectangular arrays and batch onto the MXU/VPU (the reference hints at the
+rectangular arrays and batch onto the device (the reference hints at the
 same trick in its Human6D padding, dpilqr/bbdynamics.cpp:311-316).
 """
 

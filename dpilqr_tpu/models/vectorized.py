@@ -12,7 +12,8 @@ from ONE definition per model:
 Each model's continuous-time RHS is declared as a function of component
 getters ``X(i), U(j) -> batched column`` returning a ``{component: value}``
 map; the layout adapters assemble the padded xdot with one-hot broadcast
-multiply-adds (NOT ``.at[].set``: scatter does not lower in Pallas TPU).
+multiply-adds (NOT ``.at[].set``: scatter does not lower inside Pallas
+kernels).
 
 The math matches models/specs.py exactly (same reference formulas,
 dpilqr/bbdynamics.cpp); tests cross-check both paths bit-for-bit.

@@ -1,8 +1,8 @@
 // bbdyn.cpp -- batched host-side dynamics kernel.
 //
-// TPU-native framework companion to the JAX dynamics path: the real-time
+// Host-side companion to the JAX dynamics path: the real-time
 // control loop (scripts/experiment.py) integrates measured states and
-// linearizes on the host between device solves, where a TPU round-trip per
+// linearizes on the host between device solves, where a device round-trip per
 // tiny 4-12 dim step would dominate latency.  Capability-equivalent to the
 // reference's Cython/C++ kernel (reference: dpilqr/bbdynamics.cpp) but with
 // a batched, padded-block C ABI matching this framework's (n_agents, nx_p)

@@ -33,10 +33,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 _EPS = 1e-12
+
+# Every float32 contraction of the solve runs in true float32: on a GPU
+# the default lets XLA use TF32 (about three decimal digits), which the
+# incidence-matrix identities below and the Riccati sweep cannot absorb.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class GameCost(NamedTuple):
@@ -117,26 +123,27 @@ def _pair_geometry(cost: GameCost, x, n_pos_src=None):
     reference-parity split, see module docstring).
 
     All per-pair reductions are expressed through the signed/absolute
-    incidence matrices (matmuls) instead of gathers: on TPU, gather/scatter
-    lower to serial loops while these run on the MXU.  Identities used:
+    incidence matrices (matmuls) instead of gathers.  Identities used:
     ``a_i - a_j = (W^T a)_p``, ``a_i a_j = ((|W|^T a)^2 - (W^T a)^2)/4``,
     ``min(a_i, a_j) = (|W|^T a - |W^T a|)/2``.
     """
     n, nx_p = x.shape
     k = min(3, nx_p)
     pos = jnp.zeros((n, 3), dtype=x.dtype).at[:, :k].set(x[:, :k])
-    W = jnp.asarray(_signed_incidence(n, x.dtype))  # (n, npairs)
+    W = _signed_incidence(n, x.dtype)  # (n, npairs)
     Wa = jnp.abs(W)
 
-    delta_raw = jnp.einsum("ip,ia->pa", W, pos)  # pos_i - pos_j per pair
+    # pos_i - pos_j per pair
+    delta_raw = jnp.einsum("ip,ia->pa", W, pos, precision=HIGHEST)
     n_pos = (cost.n_pos if n_pos_src is None else n_pos_src).astype(x.dtype)
-    nd_pair = 0.5 * (Wa.T @ n_pos - jnp.abs(W.T @ n_pos))  # min per pair
+    # min per pair
+    nd_pair = 0.5 * (_mv(Wa.T, n_pos) - jnp.abs(_mv(W.T, n_pos)))
     comp = jnp.arange(3, dtype=x.dtype)[None, :] < nd_pair[:, None]
     delta = delta_raw * comp
     d = jnp.sqrt(jnp.sum(delta * delta, axis=-1))
     active = (d < cost.radius).astype(x.dtype)
     m = cost.agent_mask
-    m_pair = 0.25 * ((Wa.T @ m) ** 2 - (W.T @ m) ** 2)  # mask_i * mask_j
+    m_pair = 0.25 * (_mv(Wa.T, m) ** 2 - _mv(W.T, m) ** 2)  # mask_i * mask_j
     w_pair = m_pair * active
     return delta, d, w_pair, comp
 
@@ -151,17 +158,23 @@ def proximity_cost(cost: GameCost, x):
     return jnp.sum(w_pair * pen)
 
 
-def _signed_incidence(n: int, dtype) -> np.ndarray:
+def _signed_incidence(n: int, dtype):
     """(n, npairs) matrix W with W[i, p] = +1, W[j, p] = -1 for pair p=(i,j).
 
     Static per n; lets pair quantities scatter into agent blocks as einsums
-    (MXU matmuls) instead of TPU scatter ops (which lower to serial loops).
+    instead of scatter ops.  Built on device from the pair index vectors:
+    as a literal it would be an n^3-sized constant inside every compiled
+    program (hundreds of MB at 500 agents), and the barrier keeps XLA from
+    folding it back into one.
     """
     ii, jj = _pair_indices(n)
-    W = np.zeros((n, len(ii)))
-    W[ii, np.arange(len(ii))] = 1.0
-    W[jj, np.arange(len(jj))] = -1.0
-    return W.astype(dtype)
+    ii, jj = jax.lax.optimization_barrier(
+        (jnp.asarray(ii, jnp.int32), jnp.asarray(jj, jnp.int32))
+    )
+    agents = jnp.arange(n, dtype=jnp.int32)[:, None]
+    return (agents == ii[None]).astype(dtype) - (
+        agents == jj[None]
+    ).astype(dtype)
 
 
 def proximity_quadraticize_compact(cost: GameCost, x):
@@ -190,9 +203,11 @@ def proximity_quadraticize_compact(cost: GameCost, x):
     cm = comp.astype(x.dtype)
     H = H * (cm[:, :, None] * cm[:, None, :]) * w_pair[:, None, None]
 
-    W = jnp.asarray(_signed_incidence(n, x.dtype))  # (n, npairs)
+    W = _signed_incidence(n, x.dtype)  # (n, npairs)
     L_x = jnp.zeros((n, nx_p), dtype=x.dtype)
-    L_x = L_x.at[:, :k].set(jnp.einsum("ip,pa->ia", W, g[:, :k]))
+    L_x = L_x.at[:, :k].set(
+        jnp.einsum("ip,pa->ia", W, g[:, :k], precision=HIGHEST)
+    )
     return L_x, H[:, :k, :k]
 
 
@@ -203,9 +218,11 @@ def assemble_pair_hessian(H, n: int, nx_p: int):
     (reference cost.py:160-166), as two batched matmuls instead of scatters.
     """
     k = H.shape[-1]
-    W = jnp.asarray(_signed_incidence(n, H.dtype))  # (n, npairs)
+    W = _signed_incidence(n, H.dtype)  # (n, npairs)
     L_xx = jnp.zeros((n, nx_p, n, nx_p), dtype=H.dtype)
-    return L_xx.at[:, :k, :, :k].set(jnp.einsum("ip,pab,jp->iajb", W, H, W))
+    return L_xx.at[:, :k, :, :k].set(
+        jnp.einsum("ip,pab,jp->iajb", W, H, W, precision=HIGHEST)
+    )
 
 
 def proximity_quadraticize(cost: GameCost, x):
@@ -227,9 +244,9 @@ def proximity_quadraticize(cost: GameCost, x):
 def stage_cost(cost: GameCost, x, u):
     """Weighted game stage cost (reference cost.py:197-206)."""
     e = x - cost.xf
-    ref = jnp.einsum("ia,iab,ib->i", e, cost.Q, e) + jnp.einsum(
-        "ia,iab,ib->i", u, cost.R, u
-    )
+    ref = jnp.einsum(
+        "ia,iab,ib->i", e, cost.Q, e, precision=HIGHEST
+    ) + jnp.einsum("ia,iab,ib->i", u, cost.R, u, precision=HIGHEST)
     total = cost.ref_weight * jnp.sum(cost.agent_mask * ref)
     total = total + cost.prox_weight * proximity_cost(cost, x)
     # Padded slots: tiny control regularizer keeps the padded problem
@@ -241,7 +258,7 @@ def stage_cost(cost: GameCost, x, u):
 def terminal_cost(cost: GameCost, x):
     """Weighted terminal cost; proximity applies here too (cost.py:197-206)."""
     e = x - cost.xf
-    ref = jnp.einsum("ia,iab,ib->i", e, cost.Qf, e)
+    ref = jnp.einsum("ia,iab,ib->i", e, cost.Qf, e, precision=HIGHEST)
     total = cost.ref_weight * jnp.sum(cost.agent_mask * ref)
     return total + cost.prox_weight * proximity_cost(cost, x)
 
@@ -262,8 +279,9 @@ def quadraticize_stage_compact(cost: GameCost, x, u):
     QQt = cost.Q + jnp.swapaxes(cost.Q, -1, -2)
     RRt = cost.R + jnp.swapaxes(cost.R, -1, -2)
 
-    L_x = cost.ref_weight * m[:, None] * jnp.einsum("ia,iab->ib", e, QQt)
-    L_u = cost.ref_weight * m[:, None] * jnp.einsum("ia,iab->ib", u, RRt)
+    w = cost.ref_weight * m[:, None]
+    L_x = w * jnp.einsum("ia,iab->ib", e, QQt, precision=HIGHEST)
+    L_u = w * jnp.einsum("ia,iab->ib", u, RRt, precision=HIGHEST)
     L_xx_diag = cost.ref_weight * m[:, None, None] * QQt
     L_uu = cost.ref_weight * m[:, None, None] * RRt
 
@@ -291,7 +309,9 @@ def quadraticize_terminal_compact(cost: GameCost, x):
     m = cost.agent_mask
     e = x - cost.xf
     QfQft = cost.Qf + jnp.swapaxes(cost.Qf, -1, -2)
-    L_x = cost.ref_weight * m[:, None] * jnp.einsum("ia,iab->ib", e, QfQft)
+    L_x = cost.ref_weight * m[:, None] * jnp.einsum(
+        "ia,iab->ib", e, QfQft, precision=HIGHEST
+    )
     L_xx_diag = cost.ref_weight * m[:, None, None] * QfQft
     k = min(3, nx_p)
     if n > 1:
@@ -303,11 +323,23 @@ def quadraticize_terminal_compact(cost: GameCost, x):
     return L_x, L_xx_diag, H
 
 
+def _mv(M, v):
+    return jnp.matmul(M, v, precision=HIGHEST)
+
+
 def diag_embed(blocks):
     """(n, a, b) block-diagonal embed -> (n, a, n, b) via eye-broadcast."""
     n = blocks.shape[0]
     eye_n = jnp.eye(n, dtype=blocks.dtype)
-    return jnp.einsum("ij,iab->iajb", eye_n, blocks)
+    return eye_n[:, None, :, None] * blocks[:, :, None, :]
+
+
+def block_diag(blocks):
+    """(..., n, a, b) agent blocks -> dense (..., n*a, n*b) block-diagonal."""
+    *lead, n, a, b = blocks.shape
+    eye_n = jnp.eye(n, dtype=blocks.dtype)
+    dense = eye_n[:, None, :, None] * blocks[..., :, :, None, :]
+    return dense.reshape(*lead, n * a, n * b)
 
 
 def quadraticize_stage(cost: GameCost, x, u):

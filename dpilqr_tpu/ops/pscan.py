@@ -19,14 +19,11 @@ term is then removed by the standard change of variables
 ``L~xx = L_xx - L_ux'^T L_uu'^{-1} L_ux'`` -- an exact reduction, verified
 element-for-element against the sequential sweep (tests/test_pscan.py).
 
-Enabled with ``sweep_backend="pscan"``.  Measured on a v5e chip (float32,
-4 agents; scripts/bench_pscan.py): beats the sequential lax.scan sweep from
-N=50 up -- 1.2x at N=100, 2.5x at N=400, 4.8x at N=800 -- because the
-combines are wide time-batched matmuls + vmapped Gauss-Jordan solves
-(near-constant wall clock up to N~800) while the sequential sweep pays its
-O(N) chain of small kernels.  The fused Pallas sweep remains the fastest
-choice at production horizons (N~50) on TPU; the per-alpha line-search
-rollout stays sequential (nonlinear dynamics do not scan associatively).
+Enabled with ``sweep_backend="pscan"``: the combines are wide time-batched
+matmuls + vmapped Gauss-Jordan solves, so depth grows with log N instead of
+N (scripts/bench_pscan.py compares it with the sequential sweep; not yet
+measured on the H100).  The per-alpha line-search rollout stays sequential
+(nonlinear dynamics do not scan associatively).
 """
 
 from __future__ import annotations
@@ -36,12 +33,22 @@ import jax.numpy as jnp
 
 from .ilqr import gauss_jordan_solve
 from .costs import (
+    HIGHEST,
     GameCost,
     assemble_pair_hessian,
+    block_diag,
     diag_embed,
     quadraticize_stage_compact,
     quadraticize_terminal,
 )
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
+
+
+def _ein(spec, *ops):
+    return jnp.einsum(spec, *ops, precision=HIGHEST)
 
 
 def _batched_solve(M, R):
@@ -67,38 +74,37 @@ def _combine(e1, e2):
     identity), so solving the SINGLE system
     ``(I + J2 C1) [T | m] = [J2 | eta2 - J2 b1]`` yields everything:
     every M1-product becomes ``X - C1 (T X)`` and every M2-product reads
-    off ``T`` / ``m`` directly.  Batched Gauss-Jordan rather than
-    jnp.linalg.solve because the batched LU custom call serializes on TPU
-    (same finding as ops/ilqr's gain solve); its sequential nxf-pivot
-    elimination was the combine's dominant cost, and this halves it.
+    off ``T`` / ``m`` directly.  Batched Gauss-Jordan (as in ops/ilqr's
+    gain solve); its sequential nxf-pivot elimination is the combine's
+    dominant cost, and one pass instead of two halves it.
     """
     A1, b1, C1, eta1, J1 = e1
     A2, b2, C2, eta2, J2 = e2
 
     rhs = jnp.concatenate(
-        [J2, (eta2 - jnp.einsum("...ij,...j->...i", J2, b1))[..., None]],
+        [J2, (eta2 - _ein("...ij,...j->...i", J2, b1))[..., None]],
         axis=-1,
     )
     Tm = _batched_solve(
-        jnp.eye(J2.shape[-1], dtype=J2.dtype) + J2 @ C1, rhs
+        jnp.eye(J2.shape[-1], dtype=J2.dtype) + _mm(J2, C1), rhs
     )
     T = Tm[..., :-1]  # M2 J2
     m = Tm[..., -1]  # M2 (eta2 - J2 b1)
 
-    TA1 = T @ A1
-    M1A1 = A1 - C1 @ TA1  # M1 A1
-    A = A2 @ M1A1
-    J = jnp.swapaxes(A1, -1, -2) @ TA1 + J1
-    eta = jnp.einsum("...ji,...j->...i", A1, m) + eta1
+    TA1 = _mm(T, A1)
+    M1A1 = A1 - _mm(C1, TA1)  # M1 A1
+    A = _mm(A2, M1A1)
+    J = _mm(jnp.swapaxes(A1, -1, -2), TA1) + J1
+    eta = _ein("...ji,...j->...i", A1, m) + eta1
 
-    v = b1 + jnp.einsum("...ij,...j->...i", C1, eta2)
-    Tv = jnp.einsum("...ij,...j->...i", T, v)
-    M1v = v - jnp.einsum("...ij,...j->...i", C1, Tv)
-    b = jnp.einsum("...ij,...j->...i", A2, M1v) + b2
+    v = b1 + _ein("...ij,...j->...i", C1, eta2)
+    Tv = _ein("...ij,...j->...i", T, v)
+    M1v = v - _ein("...ij,...j->...i", C1, Tv)
+    b = _ein("...ij,...j->...i", A2, M1v) + b2
 
-    TC1 = T @ C1
-    M1C1 = C1 - C1 @ TC1
-    C = A2 @ M1C1 @ jnp.swapaxes(A2, -1, -2) + C2
+    TC1 = _mm(T, C1)
+    M1C1 = C1 - _mm(C1, TC1)
+    C = _mm(_mm(A2, M1C1), jnp.swapaxes(A2, -1, -2)) + C2
     return (A, b, C, eta, J)
 
 
@@ -108,8 +114,6 @@ def _flatten_blocks(cost: GameCost, X, U, lin_fn, mu):
     N, n, nu_p = U.shape
     nx_p = X.shape[2]
     nxf, nuf = n * nx_p, n * nu_p
-    dtype = X.dtype
-    eye_n = jnp.eye(n, dtype=dtype)
 
     L_x, L_u, L_xx_diag, L_uu, H = jax.vmap(
         lambda x_t, u_t: quadraticize_stage_compact(cost, x_t, u_t)
@@ -117,9 +121,9 @@ def _flatten_blocks(cost: GameCost, X, U, lin_fn, mu):
     A, B = jax.vmap(lin_fn)(X[:-1], U)
     B = B * cost.agent_mask[None, :, None, None]
 
-    A_f = jnp.einsum("ij,tiab->tiajb", eye_n, A).reshape(N, nxf, nxf)
-    B_f = jnp.einsum("ij,tiab->tiajb", eye_n, B).reshape(N, nxf, nuf)
-    L_uu_f = jnp.einsum("ij,tiab->tiajb", eye_n, L_uu).reshape(N, nuf, nuf)
+    A_f = block_diag(A)
+    B_f = block_diag(B)
+    L_uu_f = block_diag(L_uu)
     L_xx = jax.vmap(diag_embed)(L_xx_diag)
     if n > 1:
         L_xx = L_xx + jax.vmap(lambda h: assemble_pair_hessian(h, n, nx_p))(H)
@@ -129,8 +133,8 @@ def _flatten_blocks(cost: GameCost, X, U, lin_fn, mu):
 
     # mu-regularization as modified cost (see module docstring).
     Bt = jnp.swapaxes(B_f, -1, -2)
-    L_uu_r = L_uu_f + mu * (Bt @ B_f)
-    L_ux_r = mu * (Bt @ A_f)
+    L_uu_r = L_uu_f + mu * _mm(Bt, B_f)
+    L_ux_r = mu * _mm(Bt, A_f)
     return A_f, B_f, L_uu_r, L_ux_r, L_xx_f, L_x_f, L_u_f
 
 
@@ -153,13 +157,13 @@ def backward_pass_pscan(lin_fn, cost: GameCost, X, U, mu):
         L_uu_r, jnp.concatenate([L_ux_r, L_u_f[..., None]], axis=-1)
     )
     Kp, dp = Kpd[..., :nxf], Kpd[..., nxf]
-    A_t = A_f - B_f @ Kp
-    Lxx_t = L_xx_f - jnp.swapaxes(L_ux_r, -1, -2) @ Kp
-    Lx_t = L_x_f - jnp.einsum("tux,tu->tx", L_ux_r, dp)
-    C_t = B_f @ _batched_solve(
-        L_uu_r, jnp.swapaxes(B_f, -1, -2)
+    A_t = A_f - _mm(B_f, Kp)
+    Lxx_t = L_xx_f - _mm(jnp.swapaxes(L_ux_r, -1, -2), Kp)
+    Lx_t = L_x_f - _ein("tux,tu->tx", L_ux_r, dp)
+    C_t = _mm(
+        B_f, _batched_solve(L_uu_r, jnp.swapaxes(B_f, -1, -2))
     )  # B Luu'^{-1} B^T
-    b_t = -jnp.einsum("txu,tu->tx", B_f, dp)
+    b_t = -_ein("txu,tu->tx", B_f, dp)
     # Quadratic completion of the eliminated control's own cost:
     # -1/2-free convention (matches the reference's unhalved Taylor form):
     # the constant term is dropped; the linear term keeps Lx_t.
@@ -195,9 +199,9 @@ def backward_pass_pscan(lin_fn, cost: GameCost, X, U, mu):
 
     # Gains from (P_{t+1}, p_{t+1}) exactly like the sequential sweep.
     Bt = jnp.swapaxes(B_f, -1, -2)
-    Q_uu = L_uu_r + Bt @ P_next @ B_f
-    Q_ux = L_ux_r + Bt @ P_next @ A_f
-    Q_u = L_u_f + jnp.einsum("txu,tx->tu", B_f, p_next)
+    Q_uu = L_uu_r + _mm(_mm(Bt, P_next), B_f)
+    Q_ux = L_ux_r + _mm(_mm(Bt, P_next), A_f)
+    Q_u = L_u_f + _ein("txu,tx->tu", B_f, p_next)
     rhs = jnp.concatenate([Q_ux, Q_u[..., None]], axis=-1)
     sol = _batched_solve(Q_uu, rhs)
     K = -sol[..., :nxf]

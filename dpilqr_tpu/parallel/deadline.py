@@ -10,15 +10,17 @@ deadline and stops accepting further work.  The deadline therefore caps the
 combined wall clock of all subproblems -- stricter than the reference,
 which grants each sequential subproblem its own ``t_kill``.
 
-Backends: the fused Pallas batched iteration (ops/pallas_batched.py) on
-TPU, or a vmapped-XLA iteration elsewhere -- both with per-subproblem
-accept/convergence semantics identical to the fused while_loop solve.
+Each step is the vmapped per-problem iteration (ops/ilqr.make_iteration_fn,
+Triton sweep kernel included when resolved) with finished subproblems
+frozen, so per-subproblem accept/convergence decisions are identical to
+the fused while_loop solve.
 """
 
 from __future__ import annotations
 
 from functools import partial
 from time import perf_counter
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -28,18 +30,13 @@ from ..models.fleet import Fleet
 from ..ops.costs import GameCost
 from ..ops.ilqr import (
     IlqrCarry,
-    make_iteration_fn,
     _rollout_batched_cost,
     _rollout_fn,
+    array_platform,
+    make_iteration_fn,
+    resolve_sweep_backend,
 )
-from ..ops.pallas_batched import (
-    _BatchCarry,
-    batched_iteration,
-    init_batch_carry,
-    pad_batch,
-    resolve_batched_backend,
-)
-from .distributed import DistributedResult, auto_subproblem_width
+from .distributed import DistributedResult
 from .graph import interaction_graph
 from .subproblems import (
     extract_owner,
@@ -48,6 +45,20 @@ from .subproblems import (
     gather_states,
     gather_subproblems,
 )
+
+
+class _BatchCarry(NamedTuple):
+    """Per-subproblem iteration state of the host-stepped batch."""
+
+    X: jnp.ndarray  # (S, N+1, K, nx_p)
+    U: jnp.ndarray  # (S, N, K, nu_p)
+    J: jnp.ndarray  # (S,)
+    mu: jnp.ndarray
+    delta: jnp.ndarray
+    i: jnp.ndarray  # (S,) int32 iterations executed
+    converged: jnp.ndarray
+    failed: jnp.ndarray
+    active: jnp.ndarray  # (S,) bool: still iterating
 
 
 @partial(jax.jit, static_argnums=(0, 1, 2, 3))
@@ -160,95 +171,6 @@ def _iterate_xla(fleet: Fleet, cfg: SolverConfig, sub_cost, mids_s,
     )
 
 
-@partial(jax.jit, static_argnums=(0, 1, 2))
-def _init_pallas(fleet, cfg, interpret, sub_cost, x0_s, U0_s, mids_s, enabled):
-    return init_batch_carry(
-        fleet, cfg, sub_cost, x0_s, U0_s, mids_s, enabled, interpret
-    )
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2))
-def _iterate_pallas(fleet, cfg, interpret, sub_cost, mids_s, x0_s, c):
-    return batched_iteration(fleet, cfg, sub_cost, mids_s, x0_s, c, interpret)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _init_pallas_chunked(
-    fleet, cfg, interpret, Sc, sub_cost, x0_s, U0_s, mids_s, enabled
-):
-    """Chunked initial rollout: ``lax.map`` over Sc-sized chunks so the
-    kernel working set stays at one chunk (the host-stepped analogue of
-    solve_subproblems_batched's chunking)."""
-
-    def to_chunks(a):
-        return a.reshape(-1, Sc, *a.shape[1:])
-
-    args = jax.tree.map(to_chunks, (sub_cost, x0_s, U0_s, mids_s, enabled))
-    out = jax.lax.map(
-        lambda t: init_batch_carry(fleet, cfg, *t, interpret), args
-    )
-    return jax.tree.map(lambda a: a.reshape(-1, *a.shape[2:]), out)
-
-
-@partial(jax.jit, static_argnums=(0, 1, 2, 3))
-def _iterate_pallas_chunked(
-    fleet, cfg, interpret, Sc, sub_cost, mids_s, x0_s, c
-):
-    """One kernel-path iteration over a batch larger than one launch's
-    VMEM budget: chunk the subproblem axis and loop the chunk program on
-    device.  Per-lane results are chunk-position-independent, so this is
-    exactly the single-launch iteration (VERDICT r4 item 7: the deadline
-    path must stay on the kernels at 250+ agents)."""
-
-    def to_chunks(a):
-        return a.reshape(-1, Sc, *a.shape[1:])
-
-    args = jax.tree.map(to_chunks, (sub_cost, mids_s, x0_s, c))
-    out = jax.lax.map(
-        lambda t: batched_iteration(fleet, cfg, t[0], t[1], t[2], t[3],
-                                    interpret),
-        args,
-    )
-    return jax.tree.map(lambda a: a.reshape(-1, *a.shape[2:]), out)
-
-
-# Batch widths whose step program has already compiled IN THIS PROCESS,
-# keyed by shape.  Under a wall-clock deadline the compaction descent only
-# moves to widths that are already warm: a fresh Pallas compile costs ~30 s
-# to minutes on the remote-compile path (utils/negcache.py) and would blow
-# a real-time deadline from inside the solve (ADVICE r4 medium).  Without a
-# deadline, every width is allowed (compiles amortize across the run and
-# warm this set for later deadline solves).
-_WARM_WIDTHS: set[str] = set()
-
-
-def _width_key(fleet, cfg, N: int, K: int, dtype, width: int) -> str:
-    from ..utils import negcache
-
-    return negcache.shape_key(
-        "deadline-width", fleet, N, K, str(dtype), cfg.n_ls_iter, width
-    )
-
-
-def _deadline_widths(S: int, Sc: int, unit: int) -> list[int]:
-    """Width-halving schedule that respects the chunk structure: above the
-    single-launch chunk size ``Sc`` widths halve in multiples of Sc (the
-    chunked iterate needs an integer chunk count); from Sc down, the normal
-    lane-aligned halving (compaction_widths)."""
-    from ..ops.pallas_batched import compaction_widths
-
-    widths = [S]
-    w = S
-    while w > Sc:
-        nw = max(-(-(w // 2) // Sc) * Sc, Sc)
-        if nw >= w:
-            nw = w - Sc
-        w = nw
-        widths.append(w)
-    widths.extend(compaction_widths(Sc, unit)[1:])
-    return widths
-
-
 def solve_distributed_steppable(
     fleet: Fleet,
     cost: GameCost,
@@ -286,130 +208,30 @@ def solve_distributed_steppable(
 
         membership_in, k_max = _graph_prog(X, radius, cost.n_pos, graph_n_d)
         K = _width_from_kmax(int(k_max), n)
-    backend = resolve_batched_backend(config, fleet, U.shape[0], K, n, (X,))
-    use_pallas = backend in ("pallas", "pallas-interpret")
-    interpret = backend == "pallas-interpret"
-    N_h = U.shape[0]
-    from ..ops.pallas_batched import (
-        _pad_unit as _unit_fn,
-        chunk_size_batched,
-        fits_vmem_dispatch,
+    import dataclasses
+
+    backend = resolve_sweep_backend(
+        config, K * fleet.nx_p, X.dtype, array_platform(X)
     )
-    import numpy as np
-
-    unit = _unit_fn(config.n_ls_iter)
-    Sc = 0
-    if use_pallas and not interpret:
-        # One kernel launch covers up to chunk_size_batched lanes; larger
-        # batches iterate chunked (lax.map on device) instead of falling
-        # off the kernel path (VERDICT r4 item 7).
-        S_pad = int(-(-n // unit) * unit)
-        n_br = (
-            int(np.max(fleet.branch_index_array)) + 1 if fleet.n_agents else 1
-        )
-        if fits_vmem_dispatch(
-            config, N_h, K, fleet.nx_p, fleet.nu_p, S_pad, n_br
-        ):
-            Sc = S_pad
-        else:
-            Sc = chunk_size_batched(
-                config, N_h, K, fleet.nx_p, fleet.nu_p, n_br
-            )
-            if Sc == 0:
-                use_pallas = False
-
+    config = dataclasses.replace(config, sweep_backend=backend)
     cost_c, membership, batch, sub_cost, x0_s, U_s, mids_s, enabled = _prep(
         fleet, config, K, graph_n_d, cost, X, U, radius, ignore_mask,
         membership_in,
     )
+    carry = _init_xla(fleet, config, sub_cost, x0_s, U_s, mids_s, enabled)
 
-    if use_pallas:
-        if interpret:
-            Sc_target = None
-            Sc = 0
-        else:
-            n_chunks = -(-int(-(-n // unit) * unit) // Sc)
-            Sc_target = n_chunks * Sc
-        sub_cost_p, x0_p, U_p, mids_p, enabled_p, S0 = pad_batch(
-            config, sub_cost, x0_s, U_s, mids_s, enabled, target=Sc_target
-        )
-        S_full = x0_p.shape[0]
-        if Sc == 0:
-            Sc = S_full  # interpret mode: single launch at any width
-
-        def init_fn():
-            if S_full > Sc:
-                return _init_pallas_chunked(
-                    fleet, config, interpret, Sc, sub_cost_p, x0_p, U_p,
-                    mids_p, enabled_p,
-                )
-            return _init_pallas(
-                fleet, config, interpret, sub_cost_p, x0_p, U_p, mids_p,
-                enabled_p,
-            )
-
-        carry = init_fn()
-        data = (sub_cost_p, mids_p, x0_p)
-
-        def step(d, c):
-            w = c.active.shape[0]
-            if w > Sc:
-                return _iterate_pallas_chunked(
-                    fleet, config, interpret, Sc, d[0], d[1], d[2], c
-                )
-            return _iterate_pallas(
-                fleet, config, interpret, d[0], d[1], d[2], c
-            )
-
-        widths = _deadline_widths(S_full, Sc, unit)
-    else:
-        from ..ops.pallas_batched import compaction_widths
-
-        S0 = x0_s.shape[0]
-        carry = _init_xla(fleet, config, sub_cost, x0_s, U_s, mids_s, enabled)
-        data = (sub_cost, mids_s, x0_s)
-        step = lambda d, c: _iterate_xla(fleet, config, d[0], d[1], c)
-        widths = compaction_widths(carry.active.shape[0], unit)
-
-    # Host-stepped loop with converged-subproblem retirement: the per-
-    # iteration host sync that paces the deadline fetches the ACTIVE COUNT
-    # (same single round trip as the old any() check); whenever the actives
-    # fit a smaller lane-aligned batch, finished lanes are committed to the
-    # full-width result and iteration continues on the compacted batch --
-    # matching the staged compaction of solve_subproblems_batched.  Under a
-    # deadline, compaction only descends to widths whose step program is
-    # already compiled in this process (_WARM_WIDTHS): a fresh remote
-    # compile mid-solve would blow the deadline by orders of magnitude
-    # (ADVICE r4 medium).
-    wi = 0
-    out = carry
-    idx_map = jnp.arange(carry.active.shape[0], dtype=jnp.int32)
+    # Host-stepped loop: the per-iteration host sync that paces the
+    # deadline fetches whether any subproblem is still active.
     for it in range(config.n_lqr_iter):
-        n_active = int(jnp.sum(carry.active))  # host sync paces the deadline
-        if n_active == 0:
+        if not bool(jnp.any(carry.active)):
             break
         if t_kill is not None and perf_counter() - t0 > t_kill:
             if verbose:
                 print(f"t_kill reached after {it} iterations")
             break
-        while wi + 1 < len(widths) and n_active <= widths[wi + 1]:
-            wk = _width_key(fleet, config, N_h, K, X.dtype, widths[wi + 1])
-            if t_kill is not None and wk not in _WARM_WIDTHS:
-                break  # cold width: compiling it now would blow the deadline
-            out = jax.tree.map(lambda o, s: o.at[idx_map].set(s), out, carry)
-            wi += 1
-            perm = jnp.argsort(~carry.active)[: widths[wi]]
-            carry = jax.tree.map(lambda a: a[perm], carry)
-            data = jax.tree.map(lambda a: a[perm], data)
-            idx_map = idx_map[perm]
-        carry = step(data, carry)
-        _WARM_WIDTHS.add(
-            _width_key(fleet, config, N_h, K, X.dtype, widths[wi])
-        )
-    out = jax.tree.map(lambda o, s: o.at[idx_map].set(s), out, carry)
+        carry = _iterate_xla(fleet, config, sub_cost, mids_s, carry)
 
     return _finish(
-        fleet, cost_c, membership, batch,
-        out.X[:S0], out.U[:S0], out.J[:S0], out.i[:S0],
-        out.converged[:S0], X[0], ignore_mask,
+        fleet, cost_c, membership, batch, carry.X, carry.U, carry.J,
+        carry.i, carry.converged, X[0], ignore_mask,
     )

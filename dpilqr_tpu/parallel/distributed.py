@@ -1,7 +1,7 @@
 """Distributed (decomposed) solve: graph -> batched subproblems -> one vmap.
 
 Equivalent of the reference's ``solve_distributed`` (distributed.py:25-103),
-re-designed for TPU: instead of one Python subproblem object per agent
+re-designed for an accelerator: instead of one Python subproblem object per agent
 solved sequentially / in a process pool, the n subproblems become ONE
 rectangular batch solved by a single vmapped iLQR program.  Model dispatch
 inside subproblems uses traced per-slot model indices (``Fleet.step_dyn``),
@@ -22,7 +22,12 @@ import jax.numpy as jnp
 from ..config import DEFAULT_CONFIG, SolverConfig
 from ..models.fleet import Fleet
 from ..ops.costs import GameCost
-from ..ops.ilqr import SolveResult, solve_core, _rollout_batched_cost
+from ..ops.ilqr import (
+    _rollout_batched_cost,
+    array_platform,
+    resolve_sweep_backend,
+    solve_core,
+)
 from .graph import interaction_graph
 from .subproblems import (
     SubproblemBatch,
@@ -109,19 +114,12 @@ def _solve_distributed(
     mids_s = jnp.asarray(fleet.branch_index_array)[batch.member_idx]
     enabled = ~ignore_mask
 
-    # 3. One batched solve for all subproblems: fused Pallas sweeps on TPU
-    #    (ops/pallas_batched.py), vmapped XLA scans otherwise.
-    if cfg.sweep_backend in ("pallas", "pallas-interpret"):
-        from ..ops.pallas_batched import solve_subproblems_batched
-
-        res = solve_subproblems_batched(
-            fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled,
-            interpret=cfg.sweep_backend == "pallas-interpret",
-        )
-    else:
-        res = _solve_subproblem_batch(
-            fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled
-        )
+    # 3. One batched solve for all subproblems (vmapped iLQR; with the
+    #    "triton" backend every backward sweep is one kernel grid over the
+    #    subproblems).
+    res = _solve_subproblem_batch(
+        fleet, cfg, sub_cost, x0_s, U_s, mids_s, enabled
+    )
 
     # 4. Owner extraction + scatter (ignored agents stay zero, matching the
     #    reference's skip-and-leave-zeros, distributed.py:59-63).
@@ -225,65 +223,11 @@ def solve_distributed(
         K = _width_from_kmax(int(k_max), n)
     import dataclasses
 
-    from ..ops.pallas_batched import resolve_batched_backend
-
-    from ..utils import negcache
-
-    shape_key = negcache.shape_key(
-        "batched", fleet, U.shape[0], K, n, str(X.dtype), config.n_ls_iter
+    backend = resolve_sweep_backend(
+        config, K * fleet.nx_p, X.dtype, array_platform(X)
     )
-    backend = resolve_batched_backend(config, fleet, U.shape[0], K, n, (X,))
-    if backend == "pallas" and shape_key in _vmem_fallback_cache():
-        backend = "xla"
     config = dataclasses.replace(config, sweep_backend=backend)
-    from ..ops.ilqr import retry_transient
-
-    try:
-        cfg1 = config
-        return retry_transient(
-            lambda: _solve_distributed(
-                fleet, cfg1, K, graph_n_d, cost, X, U, radius,
-                ignore_mask, membership,
-            )
-        )
-    except Exception as e:  # noqa: BLE001 -- filtered by is_vmem_error
-        from ..ops.ilqr import is_vmem_error
-
-        if config.sweep_backend != "pallas" or not is_vmem_error(e):
-            raise
-        # The VMEM budget (fits_vmem_batched) under-estimated this shape:
-        # fail safe onto the vmapped XLA scans instead of surfacing a
-        # Mosaic OOM.  Cache the decision so later calls with the same
-        # shape skip the doomed compile attempt.
-        import warnings
-
-        warnings.warn(
-            f"batched pallas kernels exceeded VMEM for this shape "
-            f"({e!s:.120}); falling back to the XLA scan path",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-        negcache.add(shape_key, _vmem_fallback_cache())
-        config = dataclasses.replace(config, sweep_backend="xla")
-        cfg2 = config
-        return retry_transient(
-            lambda: _solve_distributed(
-                fleet, cfg2, K, graph_n_d, cost, X, U, radius,
-                ignore_mask, membership,
-            )
-        )
-
-
-# Shapes whose pallas compile failed with a memory error -- seeded from
-# the persistent negative cache (utils/negcache.py) so later PROCESSES
-# resolve straight to the XLA path too.
-_VMEM_FALLBACK: set | None = None
-
-
-def _vmem_fallback_cache() -> set:
-    global _VMEM_FALLBACK
-    if _VMEM_FALLBACK is None:
-        from ..utils import negcache
-
-        _VMEM_FALLBACK = negcache.load()
-    return _VMEM_FALLBACK
+    return _solve_distributed(
+        fleet, config, K, graph_n_d, cost, X, U, radius, ignore_mask,
+        membership,
+    )

@@ -2,7 +2,7 @@
 
 The "DP" in DP-iLQR: agents within twice the proximity radius of each other
 at any of ~10 sampled knots of the previous trajectory are planned together
-(reference distributed.py:224-247).  The graph is represented TPU-natively as
+(reference distributed.py:224-247).  The graph is represented on device as
 a dense boolean membership matrix ``M: (n, n)`` with ``M[i, j] = True`` iff
 agent j belongs to agent i's subproblem (diagonal always True) -- a static
 shape regardless of the data-dependent neighborhood sizes.

@@ -169,7 +169,7 @@ def solve_rhc(
     n, nx_p, nu_p = fleet.n_agents, fleet.nx_p, fleet.nu_p
     dt = fleet.dt
 
-    # Follow the caller's dtype (float32 on TPU -- the Pallas kernels have
+    # Follow the caller's dtype (float32 on the GPU -- the Triton sweep has
     # no 64-bit path; float64 for CPU parity runs).
     x0 = np.asarray(x0)
     if not np.issubdtype(x0.dtype, np.floating):

@@ -6,7 +6,7 @@ Two sinks:
   ``dynamics,n_agents,trial,centralized,last,t,J,horizon,dt,converged,ids,
   times,subgraphs,dist_left`` -- so the reference's analysis notebooks keep
   working against our logs.
-- JSON-lines records carrying the TPU-native counters (per-solve wall time,
+- JSON-lines records carrying the solver's own counters (per-solve wall time,
   iLQR iterations, subproblem sizes, Riccati block-nnz throughput).
 """
 

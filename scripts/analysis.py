@@ -5,7 +5,7 @@ on random setups.
 Reproduces the reference's benchmark procedure (scripts/analysis.py:126-174):
 trials x agent counts x models, paired centralized/distributed runs from the
 same initial conditions, CSV rows in the reference schema plus JSON-lines
-TPU metrics.
+solver metrics.
 
 Usage:
   python scripts/analysis.py                 # full sweep (reference params)

@@ -8,8 +8,8 @@ singleton-graph distributed solve (parallel/rhc.py).  Question: does
 scales where the 10 Hz cold bar is unmet, WITHOUT degrading the solution
 (converged fraction, joint cost)?
 
-Prints one JSON line per scale with both paths measured on the same
-two-point-extrapolation timer bench.py uses.
+Prints one JSON line per scale with both paths timed the way bench.py
+times them: the median of calls that each end in ``block_until_ready``.
 """
 
 import dataclasses
@@ -24,11 +24,11 @@ from bench import _grid_scenario  # noqa: E402
 
 
 def main(scales=(100, 250, 500)):
+    import jax
     import jax.numpy as jnp
 
     import dpilqr_tpu as dtl
-    from dpilqr_tpu.ops.ilqr import retry_transient
-    from dpilqr_tpu.ops.pallas_batched import resolve_batched_backend
+    from dpilqr_tpu.ops.ilqr import array_platform, resolve_sweep_backend
     from dpilqr_tpu.parallel.distributed import _solve_distributed
     from dpilqr_tpu.parallel.rhc import selfish_warmstart
 
@@ -36,22 +36,14 @@ def main(scales=(100, 250, 500)):
     dtype = jnp.float32
     cfg = dtl.SolverConfig(n_lqr_iter=15, tol=1e-3)
 
-    def time_fn(fn, sync, reps=10):
-        retry_transient(lambda: sync(fn()))
-
-        def timed(r):
+    def time_fn(fn, reps=10):
+        out = jax.block_until_ready(fn())  # warm-up / compile
+        times = []
+        for _ in range(reps):
             t0 = time.perf_counter()
-            for _ in range(r):
-                out = fn()
-            sync(out)
-            return time.perf_counter() - t0, out
-
-        t1, _ = timed(reps)
-        t2, out = timed(2 * reps)
-        ms = (t2 - t1) / reps * 1e3
-        if ms <= 0:
-            ms = t2 / (2 * reps) * 1e3
-        return ms, out
+            out = jax.block_until_ready(fn())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), out
 
     for n in scales:
         x0, xf = _grid_scenario(n)
@@ -68,11 +60,10 @@ def main(scales=(100, 250, 500)):
         U0 = jnp.zeros((N, n, 2), dtype)
         rad = jnp.asarray(radius, dtype)
         ign = jnp.zeros((n,), bool)
-        backend = resolve_batched_backend(cfg, fleet, N, K, n, (X0,))
+        backend = resolve_sweep_backend(
+            cfg, K * fleet.nx_p, dtype, array_platform(X0)
+        )
         cfg_n = dataclasses.replace(cfg, sweep_backend=backend)
-
-        def sync(res):
-            return float(np.asarray(res.J).sum())
 
         def cold():
             return _solve_distributed(
@@ -85,8 +76,8 @@ def main(scales=(100, 250, 500)):
                 fleet, cfg_n, K, None, cost, X0, Uw, rad, ign
             )
 
-        ms_c, res_c = time_fn(cold, sync)
-        ms_w, res_w = time_fn(warmstarted, sync)
+        ms_c, res_c = time_fn(cold)
+        ms_w, res_w = time_fn(warmstarted)
         rec = {
             "n": n,
             "backend": backend,

@@ -118,7 +118,7 @@ class ExperimentRunner:
         """Compile every adaptive-horizon bucket's solve BEFORE the
         real-time loop (a real deployment precompiles; a first-use compile
         inside the loop would blow the ``t_kill`` deadline by orders of
-        magnitude, especially through a remote-compile tunnel)."""
+        magnitude)."""
         x = self.vehicles.measure()
         n, nu_p = self.fleet.n_agents, self.fleet.nu_p
         for N in range(N_MIN, N_MAX + 1, 10):

@@ -3,7 +3,7 @@
 
 bench.py's ``vs_baseline`` PROJECTS the reference cost: per-iteration numpy
 oracle time on ONE K-slot subproblem x the total subproblem iterations the
-TPU solve executed.  This tool instead runs the reference's actual
+device solve executed.  This tool instead runs the reference's actual
 sequential distributed path (dpilqr/distributed.py:56-77) on the exact
 bench workload -- build the interaction graph of the 100-agent grid
 scenario, then solve every agent's neighborhood subproblem one after

@@ -3,7 +3,7 @@ algorithm (labicon/dp-ilqr) used to validate the JAX solver's numerics.
 
 Everything here is plain Python/numpy with data-dependent control flow --
 exactly the computation the reference performs (control.py, cost.py,
-bbdynamics.cpp) -- so agreement in float64 validates the TPU-native solver
+bbdynamics.cpp) -- so agreement in float64 validates the JAX solver
 end to end.
 """
 

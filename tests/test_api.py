@@ -187,7 +187,7 @@ def test_selfish_warmstart_facade():
 
 def test_symbolic_model_extensibility():
     """SymbolicModel (reference dynamics.py:95-114): a user-defined sympy
-    model matches the equivalent built-in and runs through the TPU core."""
+    model matches the equivalent built-in and runs through the array core."""
     import sympy as sym
 
     class UserBike(api.SymbolicModel):

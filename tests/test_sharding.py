@@ -89,19 +89,18 @@ def test_trials_sharded_matches_per_trial():
         )
 
 
-def test_sharded_kernel_path_matches_unsharded():
-    """The flagship composition (VERDICT r4 item 1): the sharded solve
-    routed through the fused Pallas batched kernels (shard_map, one
-    solve_subproblems_batched per device; interpret mode on CPU) must
-    reproduce the single-device kernel solve AND the XLA sharded path --
-    identical per-subproblem iteration counts, values to the usual
-    float64 interpret tolerance."""
+def test_sharded_kernel_path_matches_unsharded(triton_interpret):
+    """The sharded solve with the Triton sweep kernel (shard_map, one
+    batched solve per device; interpret mode on CPU) must reproduce the
+    single-device kernel solve AND the XLA sharded path -- identical
+    per-subproblem iteration counts, values to the usual float64
+    tolerance."""
     n, N = 16, 8
     fleet, cost, x0, xf = _scenario(n, seed=3)
     U0 = jnp.zeros((N, n, 2))
     mesh8 = dtl.make_mesh(cpu_devices[:8])
     mesh1 = dtl.make_mesh(cpu_devices[:1])
-    cfg_k = dtl.SolverConfig(n_lqr_iter=6, sweep_backend="pallas-interpret")
+    cfg_k = dtl.SolverConfig(n_lqr_iter=6, sweep_backend="triton")
     cfg_x = dtl.SolverConfig(n_lqr_iter=6, sweep_backend="xla")
 
     res_k8 = dtl.solve_distributed_sharded(
@@ -119,7 +118,7 @@ def test_sharded_kernel_path_matches_unsharded():
     res_u = dtl.solve_distributed(
         fleet, cost, jnp.asarray(x0)[None], U0, 0.5, K=4, config=cfg_k
     )
-    # The kernel-path shard outputs live on all 8 devices.
+    # The shard outputs live on all 8 devices.
     assert len(res_k8.iters.sharding.device_set) == 8
     for other in (res_k1, res_x8, res_u):
         np.testing.assert_array_equal(
@@ -139,14 +138,14 @@ def test_sharded_kernel_path_matches_unsharded():
     assert int(np.asarray(res_k8.sizes).max()) > 1
 
 
-def test_trials_sharded_kernel_path():
-    """Monte-Carlo trials on the kernel path (r4's sweep_backend='xla' pin
-    is lifted): the flattened (trial, subproblem) kernel batch must
-    reproduce each trial's own unsharded kernel solve."""
+def test_trials_sharded_kernel_path(triton_interpret):
+    """Monte-Carlo trials on the Triton kernel path: the flattened (trial,
+    subproblem) batch must reproduce each trial's own unsharded kernel
+    solve."""
     n, N, T = 6, 8, 4
     fleet = dtl.homogeneous_fleet(dtl.UNICYCLE_4D, n, 0.1)
     mesh = dtl.make_mesh(cpu_devices[:8])
-    cfg = dtl.SolverConfig(n_lqr_iter=4, sweep_backend="pallas-interpret")
+    cfg = dtl.SolverConfig(n_lqr_iter=4, sweep_backend="triton")
 
     costs, X0s, U0s = [], [], []
     for t in range(T):

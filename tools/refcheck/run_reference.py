@@ -9,7 +9,7 @@ on deterministic scenarios and asserts that:
 
   1. the oracle reproduces the genuine package's trajectories/costs
      (float64, ~1e-7), and
-  2. the TPU framework (CPU float64 path) reproduces them too.
+  2. this framework (CPU float64 path) reproduces them too.
 
 Scenarios: the reference's own ``single_unicycle`` (scripts/examples.py:
 26-46, minus plotting) and a deterministic 3-agent unicycle potential game.
